@@ -526,8 +526,8 @@ def test_wavelets_vs_c(tmp_path):
 
     The float planes are compared with a small tolerance: the reference
     smooths with one 2-D pass accumulated in double and rounded once to
-    float, siriltpu with two separable float32 passes (the TPU-friendly
-    form) — identical taps and borders, different FP summation order.
+    float, siriltpu with two separable float32 passes (the separable
+    device form) — identical taps and borders, different FP summation order.
     WORD outputs must agree within 1 LSB with only rare (<1%) flips."""
     from siriltpu.ops import wave_io
     from siriltpu.ops.wavelets import atrous_reconstruct, atrous_transform
@@ -1339,49 +1339,31 @@ def test_dftreg_peak_decode_matches_compiled_reference():
 
 
 def test_rejection_pallas_vs_c():
-    """The fused Pallas kernels reproduce the compiled C's mean AND
-    counters on every golden vector (sigma routes through the
-    degenerate-exact hybrid; winsorized/percentile/sigmedian are the
-    in-VMEM forms) — the same anchor the HBM kernels pass, applied to
-    the TPU path in interpret mode."""
+    """The fused GPU kernel (Pallas, Triton route, in interpret mode)
+    reproduces the compiled C's mean AND counters on every golden vector
+    it takes: sigma at F in [5, F_MAX], through the degenerate-exact
+    hybrid. The other rejections run the plain path, which the tests
+    above anchor to the same goldens."""
     import jax.numpy as jnp
 
-    from siriltpu.ops.pallas.reject_stack import reject_stack_pallas
+    from siriltpu.ops.pallas.reject_stack import fused_applies, fused_stack
 
-    recs = _read_rejection()
     groups = {}
-    for t, kind, n, sig0, sig1, vec, mean, rej0, rej1 in recs:
-        name = REJ_NAMES[t]
-        if name == "sigma_masked":
-            name = "sigma"
-        if name not in ("sigma", "winsorized", "percentile", "sigmedian"):
-            continue
-        groups.setdefault((name, n, sig0, sig1), []).append(
-            (vec, mean, rej0, rej1))
-    assert len(groups) == 96
-    if not os.environ.get("SIRILTPU_FULL_GOLDENS"):
-        # interpret mode costs ~8 min for all 96 groups; default to the
-        # cheap sizes plus one large sigma group per sig (full sweep:
-        # SIRILTPU_FULL_GOLDENS=1 — verified all-96 green in r4)
-        groups = {k: v for k, v in groups.items()
-                  if k[1] <= 33 or (k[0] == "sigma" and k[1] == 128)}
+    for t, kind, n, sig0, sig1, vec, mean, rej0, rej1 in _read_rejection():
+        if (REJ_NAMES[t] in ("sigma", "sigma_masked")
+                and fused_applies("sigma", n)):
+            groups.setdefault((n, sig0, sig1), []).append(
+                (vec, mean, rej0, rej1))
+    assert groups
     bad = []
-    for (name, n, sig0, sig1), items in groups.items():
+    for (n, sig0, sig1), items in groups.items():
         vals = np.stack([it[0] for it in items], axis=1).astype(np.uint16)
-        nvec = vals.shape[1]
-        pad = 128 - nvec
-        vals = np.concatenate(
-            [vals, np.zeros((n, pad), np.uint16)], axis=1)
-        mean, rl, rh = reject_stack_pallas(
-            jnp.asarray(vals), name, sig0, sig1, tile=128,
-            interpret=True, with_counters=True)
-        mean = np.asarray(mean)[:nvec]
-        rl = np.asarray(rl)[:nvec]
-        rh = np.asarray(rh)[:nvec]
+        mean, rl, rh = (np.asarray(a) for a in fused_stack(
+            jnp.asarray(vals), "sigma", sig0, sig1, interpret=True))
         for i, (vec, wmean, w0, w1) in enumerate(items):
             if (int(mean[i]) != int(wmean) or int(rl[i]) != int(w0)
                     or int(rh[i]) != int(w1)):
-                bad.append((name, n, sig0, sig1, i,
+                bad.append((n, sig0, sig1, i,
                             (int(mean[i]), int(rl[i]), int(rh[i])),
                             (int(wmean), int(w0), int(w1))))
     assert not bad, f"{len(bad)} fused-kernel mismatches vs C: {bad[:5]}"

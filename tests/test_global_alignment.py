@@ -350,7 +350,7 @@ def test_register_global_star_error_cleanup(tmp_path, monkeypatch):
 
 def test_tiled_warp_matches_gather_warp():
     """The tiled banded sampler (dense FMAs over static window slices —
-    the fast TPU path for near-identity registration warps) agrees with
+    the gather-free path for near-identity registration warps) agrees with
     the reference gather sampler: bit-exact for nearest, within the
     shared float32 coordinate envelope for weighted kernels (both paths
     compute source coordinates in f32, so they may round a 2e-4 px

@@ -22,6 +22,61 @@ def test_memory_probe():
     assert rows >= 1
 
 
+class _FakeDevice:
+    def __init__(self, platform, stats):
+        self.platform, self.device_kind, self._stats = platform, "fake", stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize("platform,stats,want", [
+    ("cpu", None, 2 << 30),
+    ("gpu", {"bytes_limit": 60 << 30}, 60 << 30),
+    ("gpu", {}, None),
+    ("gpu", None, None),
+])
+def test_device_memory_budget(monkeypatch, platform, stats, want):
+    """An accelerator's budget is the allocator's bytes_limit; only the
+    CPU backend falls back to 2 GB, and an accelerator that reports no
+    limit raises instead of guessing."""
+    import jax
+
+    from siriltpu.core.memory import get_device_memory_bytes
+    monkeypatch.setattr(jax, "devices",
+                        lambda *a: [_FakeDevice(platform, stats)])
+    if want is None:
+        with pytest.raises(RuntimeError):
+            get_device_memory_bytes()
+    else:
+        assert get_device_memory_bytes() == want
+
+
+def test_compile_cache_placement(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR is used exactly as given; without it the
+    cache sits at the fixed in-checkout path, CPU artifacts one level
+    down in a host-keyed directory."""
+    import jax
+
+    from siriltpu.utils import compcache
+    old = jax.config.jax_compilation_cache_dir
+    try:
+        monkeypatch.setattr(compcache, "_ENABLED", "")
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert compcache.enable_compilation_cache() == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path)
+
+        monkeypatch.setattr(compcache, "_ENABLED", "")
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+        got = compcache.enable_compilation_cache()
+        assert os.path.dirname(got) == compcache.DEFAULT_DIR
+        assert os.path.basename(got).startswith("cpu-")
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert compcache.DEFAULT_DIR == os.path.join(repo, ".jax_cache")
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)
+
+
 def test_timing_format():
     assert format_time(0.001).endswith("ms")
     assert format_time(5).endswith(" s")

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 
 _PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "siril-0.9_tpu")
+                    "siril-0.9")
 
 
 def _free_port() -> int:

@@ -1,4 +1,4 @@
-"""Multi-chip sharding on the 8-device virtual CPU mesh (SURVEY §4(d))."""
+"""Multi-device sharding on the 8-device virtual CPU mesh (SURVEY §4(d))."""
 
 import numpy as np
 import pytest

@@ -29,19 +29,25 @@ def test_pipeline_matches_separate_stages():
 
 
 def test_pipeline_small_bench_runs():
+    """The benchmark harness compiles, checks the recovered shifts once,
+    and reports positive throughput on repeated batches."""
     from siriltpu.pipelines.register_stack import RegisterStackBench
     bench = RegisterStackBench(size=128, nframes=8, block_rows=64)
-    fps = bench.run()
-    assert fps > 0
-    # pipelined consumer mode: batch N's scalar fetched after batch N+1
-    # is dispatched; still observes every batch, must also run green
-    fps_pipe = bench.run(repeats=2, pipelined=True)
-    assert fps_pipe > 0
-    # overlapped-drain measurement (fps_incl_drain source) must run and
-    # report positive throughput with the overlap marker
-    fps2, drain = bench.run(repeats=2, with_drain_stats=True)
-    assert fps2 > 0 and drain["fps_incl_drain"] > 0
-    assert drain["drain_overlapped"] is True
+    assert bench.run() > 0
+    assert bench.run(repeats=2) > 0
+
+
+def test_pipeline_plain_path_matches_default():
+    """fused=False forces the plain XLA stack; on the CPU the default
+    already is that path, so both agree bit for bit."""
+    n, h, w = 6, 64, 64
+    frames, _, _ = make_sequence_frames(n, h, w, seed=41, noise_sigma=4.0)
+    mono = jnp.asarray(frames[:, 0])
+    a, sa, _ = register_and_stack(mono, sel=(8, 8, 48), keep_frames=True)
+    b, sb, _ = register_and_stack(mono, sel=(8, 8, 48), keep_frames=True,
+                                  fused=False)
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(sa, sb)
 
 
 def test_align_slice_matches_gather_align():
